@@ -1,4 +1,4 @@
-"""dipgenie_tpu — a TPU-native pangenome haplotype-inference engine.
+"""dipgenie_tpu — a JAX pangenome haplotype-inference engine.
 
 A from-scratch reimplementation of the capabilities of DipGenie ("PHI"):
 infer one (haploid) or two (diploid) full haplotype sequences from
@@ -6,12 +6,13 @@ low-coverage short reads and a pangenome graph, via (w,k)-minimizer
 matching plus a recombination-constrained dynamic program over a
 haplotype-expanded graph.
 
-Architecture (TPU-first, not a port):
+Architecture (not a port):
   - Host layer (Python + C++ via ctypes): GFA/FASTQ I/O, graph
-    construction, expanded-graph levelization, FASTA output.
-  - Device layer (JAX/XLA/Pallas): minimizer sketching, MurmurHash3,
-    k-mer mixture-model grid fitting, and the level-synchronous diploid
-    pair DP as masked vectorized kernels.
+    construction, expanded-graph levelization, FASTA output, and the
+    native C++ diploid DP tier.
+  - Device layer (plain JAX on XLA, run on an NVIDIA GPU): minimizer
+    sketching, MurmurHash3, k-mer mixture-model grid fitting, and the
+    level-synchronous diploid pair DP as masked vectorized steps.
   - parallel/: jax.sharding Mesh + shard_map data-parallel read
     pipeline and pair-tile sharding for the DP.
 

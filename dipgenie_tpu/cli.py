@@ -26,6 +26,7 @@ import sys
 from . import PHI_VERSION
 from .solver.pipeline import Pipeline, PipelineConfig
 from .utils import timing
+from .utils.compile_cache import enable_compile_cache
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,8 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-h", action="store_true", help="Show help")
     ap.add_argument("--version", action="store_true")
     ap.add_argument("--dp-backend", type=str, default="auto",
-                    choices=["auto", "exact", "native", "jax", "fused",
-                             "pallas"])
+                    choices=["auto", "exact", "native", "jax", "fused"],
+                    help="diploid DP tier; auto runs the device tier on an "
+                         "accelerator and native C++ on the CPU")
     ap.add_argument("--sketch-backend", type=str, default="host",
                     choices=["host", "device"])
     ap.add_argument("--progress", action="store_true")
@@ -85,6 +87,11 @@ def main(argv: list[str] | None = None) -> int:
         return 0 if args.h else 1
 
     timing.set_start()
+    if args.dp_backend not in ("exact", "native") or \
+            args.sketch_backend == "device":
+        # before the run's first compile: JAX settles on its persistent
+        # cache there
+        enable_compile_cache()
 
     if args.a:
         # -a1 selects the ILP branch (main.cpp:167-199). The stock reference

@@ -7,7 +7,7 @@ k-mer multiplicity histogram NLL (Fitter.hpp:127-144), with bounds/grids
 from KGFitOptions (Fitter.hpp:25-46) and the strict ``<`` first-minimum
 tie rule of the nested loops (Fitter.hpp:391-405).
 
-Strategy here (TPU-friendly instead of 8 nested scalar loops):
+Strategy here (vectorized instead of 8 nested scalar loops):
   1. factorized vectorized NLL over the whole grid (numpy float64 or
      jax on device): FHOM[u,sd,zp,x], FHET[u,vw,zph,x], FERR[s,x] are
      precomputed, then combined per (p_d,p_e,s) slice;
@@ -189,7 +189,7 @@ def _grid_nll_numpy(
 
 
 def _grid_nll_jax(U, SD, VW, ZP, ZPH, PD, PE, SS, max_copy, xs, ys):
-    """Device (TPU) evaluation of the full grid NLL in float32.
+    """Device evaluation of the full grid NLL in float32.
 
     Same factorization as the numpy path; the caller re-evaluates the
     top-K candidates in exact float64, so f32 only needs to get the
@@ -217,14 +217,19 @@ def _grid_nll_jax(U, SD, VW, ZP, ZPH, PD, PE, SS, max_copy, xs, ys):
     sdc = SDj[:, None] * jnp.sqrt(copies)[None, :]
     z = (X[None, None, None, :] - mu[:, None, :, None]) / sdc[None, :, :, None]
     pdf = inv_s2pi / sdc[None, :, :, None] * jnp.exp(-0.5 * z * z)
-    fhom = jnp.maximum(jnp.einsum("zc,uscx->uszx", zw_hom, pdf), 1e-35)
+    # HIGHEST: a float32 einsum may otherwise run in TF32 on a GPU
+    fhom = jnp.maximum(
+        jnp.einsum("zc,uscx->uszx", zw_hom, pdf,
+                   precision=jax.lax.Precision.HIGHEST), 1e-35)
 
     mu_h = (0.5 * Uj)[:, None] * copies[None, :]
     sd_base = 0.5 * jnp.sqrt(jnp.maximum(VWj, 1e-12))
     sdc_h = sd_base[:, None] * jnp.sqrt(copies)[None, :]
     z = (X[None, None, None, :] - mu_h[:, None, :, None]) / sdc_h[None, :, :, None]
     pdf = inv_s2pi / sdc_h[None, :, :, None] * jnp.exp(-0.5 * z * z)
-    fhet = jnp.maximum(jnp.einsum("zc,uvcx->uvzx", zw_het, pdf), 1e-35)
+    fhet = jnp.maximum(
+        jnp.einsum("zc,uvcx->uvzx", zw_het, pdf,
+                   precision=jax.lax.Precision.HIGHEST), 1e-35)
 
     SSj = jnp.asarray(SS, jnp.float32)
     ferr = jnp.power(X[None, :], -SSj[:, None]) - jnp.power(

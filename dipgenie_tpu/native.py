@@ -166,6 +166,12 @@ def get_lib():
         c_i32p,  # color_to_anchor
         c_i64p, c_i32p, c_i32p, c_i64p, c_i32p,  # anchors per hap
     ]
+    lib.dg_max_threads.restype = ctypes.c_int32
+    lib.dg_max_threads.argtypes = []
+    if lib.dg_max_threads() == 1 and (os.cpu_count() or 1) > 1:
+        print("[dipgenie-tpu] WARNING: libdgcore.so was built without "
+              "OpenMP; the native loops run on one thread.",
+              file=sys.stderr, flush=True)
     lib.dg_diploid_dp.restype = ctypes.c_int32
     lib.dg_diploid_dp.argtypes = [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
@@ -177,26 +183,17 @@ def get_lib():
         c_i32p,  # out_trans
         ctypes.c_int32, ctypes.c_int32,
     ]
-    c_i16p = np.ctypeslib.ndpointer(np.int16, flags="C")
-    lib.dg_pair_tables_run.restype = ctypes.c_int32
-    lib.dg_pair_tables_run.argtypes = [
-        ctypes.c_int64, c_i64p,
-        c_i64p, c_i32p, c_i8p,  # adjacency CSR
-        c_i64p, c_i32p,  # hom colors CSR
-        c_i64p, c_i32p,  # het colors CSR
-        ctypes.c_int32, ctypes.c_int32,
-    ]
-    del c_i16p  # layout documented in dg_pair_tables_view
-    lib.dg_pair_tables_total.restype = ctypes.c_int64
-    lib.dg_pair_tables_view.restype = None
-    lib.dg_pair_tables_view.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
-    lib.dg_pair_tables_release.restype = None
     _lib = lib
     return lib
 
 
 def available() -> bool:
     return get_lib() is not None
+
+
+def max_threads() -> int:
+    """Threads the native parallel loops can use (1 without OpenMP)."""
+    return int(get_lib().dg_max_threads())
 
 
 def read_fastx(path: str):
@@ -450,59 +447,3 @@ def diploid_dp(level_ptr, adj_ptr, adj_v, adj_w, hom_ptr, hom_colors,
             "level width must be < 4096 (backpointer packing limit)"
         )
     return int(val), int(out_shet[0]), out_trans.reshape(L, 5)
-
-
-def pair_tables_all(level_ptr, adj_ptr, adj_v, adj_w, hom_ptr, hom_colors,
-                    het_ptr, het_colors, R: int, n_threads: int = 0):
-    """All transitions' sorted/scored edge-pair tables in ONE native call
-    (OpenMP over levels) — the hot half of diploid_pallas.plan_pairs.
-
-    Returns (off[L], s1, s2, d1, d2, symd, ws, w1, score, score_max)
-    with pair arrays flat over transitions, or None if the instance
-    exceeds the native sort-key bounds (the numpy path then reports the
-    pallas tier's own limits properly)."""
-    lib = get_lib()
-    L = len(level_ptr) - 1
-    rc = lib.dg_pair_tables_run(
-        L,
-        np.ascontiguousarray(level_ptr, np.int64),
-        np.ascontiguousarray(adj_ptr, np.int64),
-        np.ascontiguousarray(adj_v, np.int32),
-        np.ascontiguousarray(adj_w, np.int8),
-        np.ascontiguousarray(hom_ptr, np.int64),
-        np.ascontiguousarray(hom_colors, np.int32),
-        np.ascontiguousarray(het_ptr, np.int64),
-        np.ascontiguousarray(het_colors, np.int32),
-        R, n_threads,
-    )
-    if rc != 0:
-        return None
-    total = int(lib.dg_pair_tables_total())
-    T = max(L - 1, 0)
-    # zero-copy: wrap the native static storage directly. A fresh
-    # 0.5 GB copy would pay 10-60 s of first-touch page faults on this
-    # class of virtualized host (see dg_pair_tables_view). The views
-    # are valid until the next pair_tables_all call; plan_pairs
-    # consumes them within one planning pass.
-    ptrs = (ctypes.c_void_p * 10)()
-    lib.dg_pair_tables_view(ptrs)
-
-    def view(i, n, dt):
-        if n == 0:
-            return np.empty(0, dt)
-        nbytes = np.dtype(dt).itemsize * n
-        arr = np.ctypeslib.as_array(
-            ctypes.cast(ptrs[i], ctypes.POINTER(ctypes.c_uint8)),
-            shape=(nbytes,),
-        )
-        return arr.view(dt)
-
-    return (
-        view(0, T + 1, np.int64),
-        view(1, total, np.int16), view(2, total, np.int16),
-        view(3, total, np.int16), view(4, total, np.int16),
-        view(5, total, np.int16),
-        view(6, total, np.int8), view(7, total, np.int8),
-        view(8, total, np.int32),
-        view(9, T, np.int32),
-    )

@@ -1,17 +1,11 @@
-"""Fused single-dispatch TPU diploid pair DP.
+"""Fused one-scan device diploid pair DP in plain JAX.
 
-STATUS (round 4): a compatibility/CPU-mesh tier. The pair-space
-Pallas tier (ops/diploid_pallas.py) is the production TPU backend
-(0.667 s per MHC forward, fetch-terminated); this module's historical
-motivation — collapsing the chunked tier's ~7k dispatches into one —
-was based on block_until_ready timings that round 4 showed are not
-execution barriers (see BENCH_NOTES.md autopsy), and an MHC-scale
-attempt on the real TPU (round 4) crashed the TPU worker outright
-(multi-GB backpointer carry in one program). It remains parity-tested
-(toy e2e + random DAGs) and useful where Mosaic is unavailable. It runs the ENTIRE forward as ONE
-`lax.scan` over all L-1 transitions:
+The whole forward pass is ONE `lax.scan` over all L-1 transitions, and
+the traceback one more, so a run is a handful of dispatches. The
+backpointers of every level stay in device memory for the traceback: at
+the MHC_4 shapes that is about 0.85 GB of int16 before bucket padding.
 
-  * state V [R+1, Bmax, Bmax] int32 lives in HBM across the scan; each
+  * state V [R+1, Bmax, Bmax] int32 lives in device memory across the scan; each
     transition updates only its bucket's corner slice (stale values
     outside a corner are never read: a transition reads rows/cols
     < k == previous k2 <= previous corner);
@@ -30,10 +24,15 @@ attempt on the real TPU (round 4) crashed the TPU worker outright
     sentinel range analysis; the explicit pair is range-safe for any P
     and any DP value < 2^30. No SH carry, no best_i/j arrays: s_het is
     recomputed during the traceback.
-  * backpointers (the tie field) are written as int16 into per-bucket
-    flat HBM buffers carried through the scan (in-place
-    dynamic-update-slice), so the backward pass is a pure traceback —
-    no forward replay.
+  * backpointers (the tie field) are written as int16 into ONE flat
+    device buffer carried through the scan, level l's [R+1, B, B] block
+    at offset boff[l]. The switch branch only returns the block, padded
+    to the widest bucket's size; the dynamic-update-slice into the
+    buffer happens outside the switch, so it stays in place (a buffer
+    threaded through `lax.switch` is copied at every level, which makes
+    the pass quadratic in the number of levels). The padding tail of a
+    level's block is overwritten by the next level's. The backward pass
+    is a pure traceback — no forward replay.
 
 The r-shift by edge weight w ∈ {0,1} is folded into the gathers: the
 row gather indexes concat([V, shift1(V)], rows) with i_of + B*wu, the
@@ -81,6 +80,7 @@ class FusedPlan:
     buckets: list[Bucket]
     bid: np.ndarray  # [L1] int32 bucket id per transition
     row: np.ndarray  # [L1] int32 row within the bucket stack
+    boff: np.ndarray  # [L1] int32 offset of the level's backpointer block
     # per bucket: stacked tables
     pi: list[np.ndarray]  # [N, B, P] int32 pred index (identity pad)
     pw: list[np.ndarray]  # [N, B, P] int8 edge weight
@@ -152,13 +152,12 @@ def plan_fused(
         max_level_score = max(max_level_score, 2 * len(cs))
         if Pl > _P_LADDER[-1]:
             raise ValueError(
-                f"level {l}: in-degree {Pl} > {_P_LADDER[-1]} pred slots; "
-                "use the chunked backend"
+                f"level {l}: in-degree {Pl} > {_P_LADDER[-1]} pred slots"
             )
         if Wl > _W_LADDER[-1]:
             raise ValueError(
                 f"level {l}: {len(uniq)} distinct colours need {Wl} words "
-                f"> {_W_LADDER[-1]}; use the chunked backend"
+                f"> {_W_LADDER[-1]}"
             )
         need.append((max(k, k2), Pl, Wl))
         per.append((k, k2, dsts_s, srcs_s, ws_s, indeg, uniq, b0, b1, b2))
@@ -226,13 +225,12 @@ def plan_fused(
     if max_level_score > REACH_T - NEG:  # need NEG + score <= REACH_T
         raise ValueError(
             f"per-level score mass {max_level_score} exceeds the "
-            f"unreachable-sentinel margin {REACH_T - NEG}; "
-            "use the chunked backend"
+            f"unreachable-sentinel margin {REACH_T - NEG}"
         )
     if total_score_mass >= (1 << 30):
         raise ValueError(
             f"total score mass {total_score_mass} >= 2^30 would overflow "
-            "int32 DP values; use the chunked backend"
+            "int32 DP values"
         )
 
     bid = np.zeros(L1, np.int32)
@@ -244,17 +242,16 @@ def plan_fused(
         row[l] = counts[i]
         counts[i] += 1
 
-    # backpointer buffers are flat int16 arrays indexed with int32
-    # offsets (dynamic_update_slice on TPU) — every bucket buffer must
-    # stay below 2^31 elements
-    for i, b in enumerate(buckets):
-        nelem = (R + 1) * b.B * b.B * counts[i]
-        if nelem >= (1 << 31):
-            raise ValueError(
-                f"bucket {i} (B={b.B}) backpointer buffer {nelem} elements "
-                ">= 2^31: int32 offsets would overflow; use the chunked "
-                "backend"
-            )
+    # the backpointer buffer is a flat int16 array indexed with int32
+    # offsets (dynamic_update_slice) — it must stay below 2^31 elements
+    block = np.array([(R + 1) * b.B * b.B for b in buckets], np.int64)[bid]
+    boff = np.concatenate([[0], np.cumsum(block)[:-1]])
+    nelem = int(block.sum()) + int(block.max())
+    if nelem >= (1 << 31):
+        raise ValueError(
+            f"backpointer buffer of {nelem} elements >= 2^31: int32 "
+            "offsets would overflow"
+        )
 
     # ---- pass 2: fill stacked tables ----
     pi = [np.zeros((n, b.B, b.P), np.int32) for n, b in zip(counts, buckets)]
@@ -293,6 +290,7 @@ def plan_fused(
 
     return FusedPlan(
         R=R, L1=L1, buckets=buckets, bid=bid, row=row,
+        boff=boff.astype(np.int32),
         pi=pi, pw=pw, pm=pm, hm=hm, widths=widths,
         max_value_bound=total_score_mass,
     )
@@ -304,7 +302,9 @@ def plan_fused(
 
 
 def _branch_step(R: int, bk: Bucket, Bmax: int):
-    """Returns f(V_pad, bufs, row, stacks_i) -> (V_pad, bufs) for one bucket."""
+    """Returns f(V_pad, row, stacks_i) -> (V_pad, backpointer block) for
+    one bucket; the block is flat int16, zero-padded to the widest
+    bucket's (R+1)·Bmax² elements."""
     import jax
     import jax.numpy as jnp
 
@@ -314,7 +314,7 @@ def _branch_step(R: int, bk: Bucket, Bmax: int):
     def pcs(x):
         return jax.lax.population_count(x).sum(-1).astype(jnp.int32)
 
-    def f(V_pad, bufs, buf_idx, row, PI, PW, PM, HM):
+    def f(V_pad, row, PI, PW, PM, HM):
         pi = jax.lax.dynamic_slice_in_dim(PI, row, 1, 0)[0]
         pwt = jax.lax.dynamic_slice_in_dim(PW, row, 1, 0)[0].astype(jnp.int32)
         pmt = jax.lax.dynamic_slice_in_dim(PM, row, 1, 0)[0]
@@ -399,17 +399,13 @@ def _branch_step(R: int, bk: Bucket, Bmax: int):
         Vn = jnp.where(best_v > jnp.int32(REACH_T), best_v, jnp.int32(NEG))
         bp = best_t.astype(jnp.int16)
 
+        # stale state outside the corner is never read (see module doc)
         V_out = jax.lax.dynamic_update_slice(V_pad, Vn, (0, 0, 0))
-        if B < Bmax:
-            # stale state outside the corner is never read (see module doc)
-            pass
-        buf = bufs[buf_idx]
-        off = row * np.int32((R + 1) * B * B)
-        buf = jax.lax.dynamic_update_slice(buf, bp.reshape(-1), (off,))
-        bufs = tuple(
-            buf if i == buf_idx else b for i, b in enumerate(bufs)
-        )
-        return V_out, bufs
+        pad = (R + 1) * (Bmax * Bmax - B * B)
+        block = bp.reshape(-1)
+        if pad:
+            block = jnp.concatenate([block, jnp.zeros(pad, jnp.int16)])
+        return V_out, block
 
     return f
 
@@ -447,17 +443,15 @@ class FusedDiploidDP:
         xs = (
             jax.device_put(p.bid),
             jax.device_put(p.row),
+            jax.device_put(p.boff),
         )
         self._device = (tuple(stacks), xs)
         return self._device
 
-    def _buf_sizes(self):
-        p = self.plan
-        R = self.R
-        return [
-            max((R + 1) * b.B * b.B * int((p.bid == i).sum()), 1)
-            for i, b in enumerate(p.buckets)
-        ]
+    def _buf_size(self) -> int:
+        """Backpointer buffer elements: every level's block, plus the
+        padding tail of the last one."""
+        return int(self.plan.boff[-1]) + (self.R + 1) * self.Bmax ** 2
 
     def _forward_fn(self):
         import jax
@@ -470,27 +464,26 @@ class FusedDiploidDP:
         R, Bmax = self.R, self.Bmax
         branch_fns = [_branch_step(R, b, Bmax) for b in p.buckets]
 
-        def run(stacks, xs, V0, bufs):
+        def run(stacks, xs, V0, buf):
             def body(carry, x):
-                V, bufs = carry
-                b, r = x
+                V, buf = carry
+                b, r, off = x
 
                 def mk(i):
                     def g(op):
-                        V, bufs, r = op
-                        return branch_fns[i](
-                            V, bufs, i, r, *stacks[i]
-                        )
+                        V, r = op
+                        return branch_fns[i](V, r, *stacks[i])
 
                     return g
 
-                V2, bufs2 = jax.lax.switch(
-                    b, [mk(i) for i in range(len(p.buckets))], (V, bufs, r)
+                V2, block = jax.lax.switch(
+                    b, [mk(i) for i in range(len(p.buckets))], (V, r)
                 )
-                return (V2, bufs2), None
+                buf = jax.lax.dynamic_update_slice(buf, block, (off,))
+                return (V2, buf), None
 
-            (Vf, bufsf), _ = jax.lax.scan(body, (V0, bufs), xs)
-            return Vf, bufsf
+            (Vf, buff), _ = jax.lax.scan(body, (V0, buf), xs)
+            return Vf, buff
 
         self._jit[key] = jax.jit(run, donate_argnums=(3,))
         return self._jit[key]
@@ -502,29 +495,56 @@ class FusedDiploidDP:
         R, Bmax = self.R, self.Bmax
         V0 = np.full((R + 1, Bmax, Bmax), NEG, np.int32)
         V0[:, 0, 0] = 0
-        bufs = tuple(
-            jnp.zeros(n, jnp.int16) for n in self._buf_sizes()
-        )
-        return jax.device_put(V0), bufs
+        return jax.device_put(V0), jnp.zeros(self._buf_size(), jnp.int16)
 
-    # ---------------- forward-only benchmark ----------------
-    def measure_forward(self, passes: int = 2, fetch_value: bool = False):
+    # ---------------- staging ----------------
+    def ship(self):
+        """Copy the stacked tables to the device and wait for them."""
+        import jax
+
+        jax.block_until_ready(self._ship())
+
+    def compile(self):
+        """Compile the forward, traceback and finalize executables."""
+        import jax
+        import jax.numpy as jnp
+
+        stacks, xs = self._ship()
+        R, Bmax, L1 = self.R, self.Bmax, self.plan.L1
+        V = jax.ShapeDtypeStruct((R + 1, Bmax, Bmax), jnp.int32)
+        bufs = jax.ShapeDtypeStruct((self._buf_size(),), jnp.int16)
+        sh = jax.ShapeDtypeStruct((), jnp.int32)
+        rows = jax.ShapeDtypeStruct((L1, 4), jnp.int32)
+        for key, fn, args in (
+            ("fwd", self._forward_fn(), (stacks, xs, V, bufs)),
+            ("trace", self._trace_fn(), (stacks, bufs, xs)),
+            ("finalize", self._finalize_fn(), (V, sh, rows)),
+        ):
+            self._jit[key] = fn.lower(*args).compile()
+
+    def measure_passes(self, passes: int = 1):
+        """Forward-pass walls after one warm-up pass; each pass is ended
+        by a device-to-host fetch of the sink value.
+
+        Returns ([wall_0..wall_{n-1}], sink_value)."""
         import time as _time
 
         stacks, xs = self._ship()
         fwd = self._forward_fn()
-        best = None
-        Vf = None
-        for _ in range(max(passes, 1)):
+
+        def one():
             V0, bufs = self._initial()
-            t0 = _time.time()
+            t0 = _time.perf_counter()
             Vf, bufs = fwd(stacks, xs, V0, bufs)
-            Vf.block_until_ready()
-            dt = _time.time() - t0
-            best = dt if best is None else min(best, dt)
-        if fetch_value:
-            return best, int(np.asarray(Vf)[self.R, 0, 0])
-        return best
+            v = int(np.asarray(Vf[self.R, 0, 0]))
+            return _time.perf_counter() - t0, v
+
+        one()
+        walls, v = [], None
+        for _ in range(max(passes, 1)):
+            w, v = one()
+            walls.append(w)
+        return walls, v
 
     # ---------------- traceback ----------------
     def _trace_fn(self):
@@ -538,21 +558,25 @@ class FusedDiploidDP:
         R = self.R
         nb = len(p.buckets)
 
-        def run(stacks, bufs, xs):
-            # xs (reversed order): bid, row
+        def run(stacks, buf, xs):
+            # xs (reversed order): bid, row, boff
+            widths = jnp.asarray([bk.B for bk in p.buckets], jnp.int32)
+
             def body(carry, x):
                 i2, j2, r2, sh = carry
-                b, r = x
+                b, r, off = x
+                # read outside the switch: a buffer operand of a switch
+                # branch may be copied at every level
+                B = widths[b]
+                bp = jax.lax.dynamic_slice(
+                    buf, (off + (r2 * B + i2) * B + j2,), (1,))[0]
 
                 def mk(i):
                     bk = p.buckets[i]
                     B, P, W, qb = bk.B, bk.P, bk.W, bk.qbits
 
                     def g(op):
-                        i2, j2, r2, r_row = op
-                        off = r_row * np.int32((R + 1) * B * B)
-                        idx = off + (r2 * B + i2) * B + j2
-                        bp = jax.lax.dynamic_slice(bufs[i], (idx,), (1,))[0]
+                        i2, j2, r_row, bp = op
                         bp = bp.astype(jnp.int32) & jnp.int32((1 << (2 * qb)) - 1)
                         ps = jnp.int32(P - 1) - (bp >> qb)
                         qs = jnp.int32(P - 1) - (bp & ((1 << qb) - 1))
@@ -592,7 +616,7 @@ class FusedDiploidDP:
                     return g
 
                 pi_, pj_, wu, wv, symd = jax.lax.switch(
-                    b, [mk(i) for i in range(nb)], (i2, j2, r2, r)
+                    b, [mk(i) for i in range(nb)], (i2, j2, r, bp)
                 )
                 rows = jnp.stack([pi_, pj_, wu, wv])
                 return (pi_, pj_, r2 - wu - wv, sh + symd), rows
@@ -645,7 +669,7 @@ class FusedDiploidDP:
         xs_rev = tuple(jnp.flip(a, 0) for a in xs)
         sh, rows = self._trace_fn()(stacks, bufs, xs_rev)
         out = np.asarray(self._finalize_fn()(Vf, sh, rows))
-        vlog("synchronised (single fetch)")
+        vlog("fetched")
         sink_val = int(out[0])
         sink_shet = int(out[1])
         path = out[2:].reshape(-1, 4)  # reversed order: level L1..1

@@ -1,7 +1,7 @@
-"""TPU diploid pair DP: level-synchronous wavefront as JAX kernels.
+"""Chunked device diploid pair DP: level-synchronous wavefront in plain JAX.
 
 The hot loop of the pipeline (reference: src/approximator.cpp:362-716)
-recast for XLA/TPU:
+recast for XLA:
 
   * state V[(R+1), B, B] int32 (+ s_het companion) per level, padded to a
     fixed bucket width B;
@@ -20,13 +20,11 @@ recast for XLA/TPU:
     Oversized transitions dispatch to per-shape jitted "big" steps over
     per-shape device stacks.
 
-Orchestration is latency-tolerant by construction: all inputs are shipped
-to HBM once, every step is an *async* dispatch, the forward pass stores
-periodic state checkpoints on device, and backtracking replays each span
-(recompute) and walks the backpointers with a reverse `lax.scan` — also
-on device. Exactly one host synchronisation fetches (value, s_het, path).
-This matters both for remote-attached TPUs (1-2 s round-trip links) and
-for keeping the device pipeline full on local hosts.
+All inputs are shipped to device memory once and every step is an
+asynchronous dispatch. The forward pass stores periodic state checkpoints
+on device; backtracking replays each span with backpointers and walks
+them with a reverse `lax.scan`, also on device. One host transfer at the
+end fetches (value, s_het, path).
 """
 
 from __future__ import annotations
@@ -58,10 +56,14 @@ class Transition:
 
 
 def _bucket(x: int, opts) -> int:
+    """Smallest rung >= x; past the last rung, keep doubling it."""
     for o in opts:
         if x <= o:
             return o
-    return opts[-1]
+    o = opts[-1]
+    while o < x:
+        o *= 2
+    return o
 
 
 def plan_transitions(
@@ -505,10 +507,8 @@ class DeviceDiploidDP:
         return self._jit[key]
 
     def _finalize_fn(self):
-        """Pack (sink value, sink s_het, path rows) into ONE array so the
-        host needs exactly one device→host transfer. Some remote-attached
-        runtimes permanently degrade dispatch latency after any transfer,
-        so minimizing transfer *count* matters beyond latency."""
+        """Pack (sink value, sink s_het, path rows) into one array, so the
+        host needs one device-to-host transfer."""
         import jax
         import jax.numpy as jnp
 
@@ -523,13 +523,13 @@ class DeviceDiploidDP:
             self._jit[key] = self._jit_sharded(f, self._rep_sharding())
         return self._jit[key]
 
-    def _pathbuf_update(self):
+    def _pathbuf_update(self, T: int):
         """Donated in-place row update of the path buffer (avoids a full
         functional copy per backtraced op)."""
         import jax
         import jax.numpy as jnp
 
-        key = "pbupd"
+        key = ("pbupd", T)
         if key not in self._jit:
 
             def f(pb, rows, off):
@@ -540,12 +540,12 @@ class DeviceDiploidDP:
             )
         return self._jit[key]
 
-    def _trace_fn(self, T: int):
+    def _trace_fn(self, T: int, B: int):
         """Reverse walk through a chunk's backpointers, on device."""
         import jax
         import jax.numpy as jnp
 
-        key = ("trace", T)
+        key = ("trace", T, B)
         if key not in self._jit:
 
             def run(ys, carry):  # ys [T, R+1, B, B]; carry [3] = (i2, j2, r2)
@@ -566,16 +566,63 @@ class DeviceDiploidDP:
             self._jit[key] = self._jit_sharded(run, (rep, rep))
         return self._jit[key]
 
-    def measure_passes(self, passes: int = 5):
-        """Honest per-pass wall seconds, each pass TERMINATED BY A
-        DEVICE->HOST FETCH of the sink value.
+    # ---------------- staging ----------------
+    def ship(self):
+        """Copy the transition stacks to the device and wait for them."""
+        import jax
 
-        block_until_ready is NOT an execution barrier on some
-        remote-attached runtimes (it returns once dispatch completes,
-        while the device still runs) — only a data fetch proves the
-        pass executed. The block-based timing this method used through
-        round 3 overstated this tier's MHC throughput ~30x (enqueue
-        0.24-0.42 s/pass vs 52 s measured fetch-terminated).
+        jax.block_until_ready(self._ship())
+
+    def compile(self):
+        """Compile every executable run() calls, ahead of its first call.
+
+        With a mesh the executables compile at their first call instead:
+        their input shardings come from the committed arrays."""
+        if self.mesh is not None:
+            return
+        import jax
+        import jax.numpy as jnp
+
+        small, big = self._ship()
+        R, ops = self.R, self.ops
+
+        def i32(*shape):
+            return jax.ShapeDtypeStruct(shape, jnp.int32)
+
+        def state(B):
+            return i32(R + 1, B, B)
+
+        pb = i32(max(sum(op.T for op in ops), 1), 4)
+        todo = {}
+        B_prev = ops[0].shape[0] if ops else self.small[0]
+        for op in ops:
+            B = op.shape[0]
+            if B != B_prev:
+                todo[("resize", B_prev, B)] = (
+                    self._resize_fn(B_prev, B), (state(B_prev), state(B_prev)))
+            B_prev = B
+            if op.kind == "scan":
+                for with_bp in (False, True):
+                    todo[("scan", op.T, with_bp)] = (
+                        self._scan_fn(op.T, with_bp),
+                        (small, state(B), state(B), i32()))
+            else:
+                todo[("big", op.shape)] = (
+                    self._big_fn(op.shape),
+                    (big[op.shape], state(B), state(B), i32()))
+            todo[("trace", op.T, B)] = (
+                self._trace_fn(op.T, B), (i32(op.T, R + 1, B, B), i32(3)))
+            todo[("pbupd", op.T)] = (
+                self._pathbuf_update(op.T), (pb, i32(op.T, 4), i32()))
+        todo["finalize"] = (
+            self._finalize_fn(), (state(B_prev), state(B_prev), pb))
+        for key, (fn, args) in todo.items():
+            self._jit[key] = fn.lower(*args).compile()
+
+    def measure_passes(self, passes: int = 1):
+        """Forward-pass walls after one warm-up pass; each pass is ended
+        by a device-to-host fetch of the sink value.
+
         Returns ([wall_0..wall_{n-1}], sink_value)."""
         import time as _time
 
@@ -586,12 +633,11 @@ class DeviceDiploidDP:
         def one():
             B_cur = ops[0].shape[0] if ops else self.small[0]
             V, SH = self._initial_state(B_cur)
-            t0 = _time.time()
+            t0 = _time.perf_counter()
             for op in ops:
-                nonlocal_B = op.shape[0]
-                if nonlocal_B != B_cur:
-                    V, SH = self._resize_fn(B_cur, nonlocal_B)(V, SH)
-                    B_cur = nonlocal_B
+                if op.shape[0] != B_cur:
+                    V, SH = self._resize_fn(B_cur, op.shape[0])(V, SH)
+                    B_cur = op.shape[0]
                 if op.kind == "scan":
                     V, SH, _ = self._scan_fn(op.T, False)(
                         small, V, SH, np.int32(op.start)
@@ -600,24 +646,15 @@ class DeviceDiploidDP:
                     V, SH, _ = self._big_fn(op.shape)(
                         big[op.shape], V, SH, np.int32(op.start)
                     )
-            v = int(np.asarray(V)[R, 0, 0])
-            return _time.time() - t0, v
+            v = int(np.asarray(V[R, 0, 0]))
+            return _time.perf_counter() - t0, v
 
-        one()  # warm: compiles + first-fetch effects
-        walls = []
-        v = None
+        one()
+        walls, v = [], None
         for _ in range(max(passes, 1)):
             w, v = one()
             walls.append(w)
         return walls, v
-
-    def measure_forward(self, passes: int = 2, fetch_value: bool = False):
-        """Best honest pass wall (see measure_passes)."""
-        walls, v = self.measure_passes(passes)
-        best = min(walls)
-        if fetch_value:
-            return best, v
-        return best
 
     # ---------------- driver ----------------
     def run(self, verbose: bool = False):
@@ -706,16 +743,17 @@ class DeviceDiploidDP:
                     )
                     ys = ys[None]
                 seg.append((oi, ys))
-            upd = self._pathbuf_update()
             for oi, ys in reversed(seg):
                 op = ops[oi]
-                carry, rows = self._trace_fn(op.T)(ys, carry)
-                path_buf = upd(path_buf, rows, np.int32(row_offsets[oi]))
+                carry, rows = self._trace_fn(op.T, op_B(op))(ys, carry)
+                path_buf = self._pathbuf_update(op.T)(
+                    path_buf, rows, np.int32(row_offsets[oi])
+                )
             span_end = s
             if (si + 1) % self.throttle_spans == 0:
                 carry.block_until_ready()  # queue-depth bound (see forward)
 
-        # single synchronisation (ONE device->host transfer)
+        # one device-to-host transfer
         vlog("all ops enqueued; synchronising")
         out = np.asarray(self._finalize_fn()(V, SH, path_buf))
         sink_val = int(out[0])

@@ -1,4 +1,4 @@
-"""Device (TPU) minimizer sketching: batched canonical (w,k)-minimizers
+"""Device minimizer sketching: batched canonical (w,k)-minimizers
 with on-device MurmurHash3.
 
 Same semantics as the host scanner (sketch/minimizers.py, reference
@@ -12,8 +12,9 @@ src/solver.cpp:277-412) for pure-ACGT sequences:
     equally; the reference dedups by hash, identical modulo 64-bit hash
     collisions between adjacent minimizers);
   * MurmurHash3_x64_128 XOR-fold computed on device with 64-bit
-    arithmetic emulated on uint32 pairs (TPU has no native u64 multiply),
-    bit-identical to the host/native hashes — asserted in tests.
+    arithmetic emulated on uint32 pairs (JAX's default 32-bit mode has
+    no uint64), bit-identical to the host/native hashes — asserted in
+    tests.
 
 Inputs are 2-bit base codes (A=0,C=1,G=2,T=3); reads containing other
 characters must take the host path (the pipeline routes them there).
@@ -335,8 +336,10 @@ def sketch_reads_device(seqs: list[str], k: int, w: int, batch: int = 2048,
     With ``mesh`` (a jax.sharding.Mesh with a "dp" axis), the read batch
     is sharded over dp via shard_map: every device sketches its read
     shard with the same kernel, results gather back sharded-out — the
-    data-parallel leg of the SURVEY §7.6 decomposition. Row padding to a
-    dp multiple uses zero-length reads (which emit nothing)."""
+    data-parallel leg of the SURVEY §7.6 decomposition. Every call runs
+    ``batch`` rows (rounded up to a dp multiple), so each read length
+    bucket compiles once; padding rows are zero-length reads, which emit
+    nothing."""
     import jax
 
     from ..sketch.minimizers import sketch_sequence
@@ -377,8 +380,7 @@ def sketch_reads_device(seqs: list[str], k: int, w: int, batch: int = 2048,
         for s0 in range(0, len(members), batch):
             chunk = members[s0 : s0 + batch]
             texts = [seqs[i] for i in chunk]
-            if len(texts) % n_dp:  # pad rows to a dp multiple
-                texts += [""] * (n_dp - len(texts) % n_dp)
+            texts += [""] * (-(-batch // n_dp) * n_dp - len(texts))
             codes, lens, pure = encode_reads(texts, plen)
             hh, hl, emit, _ = jit_kernel(jnp.asarray(codes), jnp.asarray(lens))
             hh = np.asarray(hh, np.uint64)

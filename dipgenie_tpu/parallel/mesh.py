@@ -1,25 +1,22 @@
-"""Multi-chip scaling: jax.sharding Mesh + shard_map pipeline.
+"""Multi-device sharding: jax.sharding Mesh + shard_map helpers.
 
 The reference is single-process OpenMP (SURVEY §2.3); there is no
-distributed design to port. The TPU-native decomposition:
+distributed design to port. Two axes:
 
   * **dp (data parallel)** — reads are sharded across devices; each
     device sketches its shard with the batched minimizer kernel
     (ops/sketch_jax.py) and joins hashes against a *replicated* sorted
     haplotype-minimizer table; per-table-slot match counts (the
     spectrum-side reduction of solver.cpp:533-575) merge with a single
-    `psum` over the dp axis — collectives ride ICI.
-  * **tp (tensor parallel)** — two tiers. The chunked jax tier shards
-    the diploid pair-DP state V[(R+1), K, K] over the destination-row
-    axis (sharded_dp_level_step below). The FLAGSHIP pair-space Pallas
-    tier shards its wide transitions' 1024-lane destination windows
-    over tp with a pmax merge and runs narrow levels replicated — pass
-    mesh= to ops.diploid_pallas.PairDiploidDP; design + ICI cost model
-    in DESIGN_MULTICHIP.md.
+    `psum` over the dp axis.
+  * **tp** — the chunked device DP tier (ops/diploid_jax.py) shards the
+    diploid pair-DP state V[(R+1), K, K] over the destination-row axis
+    (sharded_dp_level_step below, or mesh= on DeviceDiploidDP).
 
-Haplotype-expanded graphs are small relative to HBM (the MHC graph's DP
-inputs are ~100 MB), so the graph index is replicated per device and
-only reads/states are sharded — matching the SURVEY §7 plan.
+Haplotype-expanded graphs are small next to device memory (the MHC
+graph's DP inputs are ~100 MB), so the graph index is replicated per
+device and only reads and states are sharded. No CLI path builds a mesh
+yet; these helpers are tested on a virtual CPU device mesh.
 """
 
 from __future__ import annotations

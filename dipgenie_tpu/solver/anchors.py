@@ -289,24 +289,32 @@ def materialize_hits(data: AnchorData, H: int) -> list[list[list[Chain]]]:
     return hits
 
 
+def multiplicity_histogram(read_hashes, sp_hashes):
+    """#reads containing each spectrum hash, the {multiplicity: freq}
+    histogram and the fitter options for it (solver.cpp:711-760).
+
+    Returns (multiplicity per hash, hist_pairs, KGFitOptions)."""
+    mult_per_hash = np.zeros(len(sp_hashes), np.int64)
+    for rh in read_hashes:
+        pos = np.searchsorted(sp_hashes, rh)
+        mult_per_hash[pos] += 1
+    uniq_m, freq = np.unique(mult_per_hash, return_counts=True)
+    hist_pairs = [(int(m), float(f)) for m, f in zip(uniq_m, freq) if m > 0]
+    max_mult = int(uniq_m.max()) if len(uniq_m) else 0
+    opt = KGFitOptions(
+        max_copy=10, max_x_use=max_mult, u_hi=float(max_mult),
+        fit_error=True, fit_varw=True,
+    )
+    return mult_per_hash, hist_pairs, opt
+
+
 def _classify(data: AnchorData, read_hashes, sp_hashes, S: int,
               verbose: bool) -> None:
     """Histogram + mixture fit + HOM/HET classification
     (solver.cpp:711-887)."""
     # 7) multiplicity histogram: #reads containing each hash
-    mult_per_hash = np.zeros(S, np.int64)
-    for rh in read_hashes:
-        pos = np.searchsorted(sp_hashes, rh)
-        mult_per_hash[pos] += 1
-    data.multiplicity = mult_per_hash
-
-    uniq_m, freq = np.unique(mult_per_hash, return_counts=True)
-    hist_pairs = [(int(m), float(f)) for m, f in zip(uniq_m, freq) if m > 0]
-    max_mult = int(uniq_m.max()) if len(uniq_m) else 0
-
-    opt = KGFitOptions(
-        max_copy=10, max_x_use=max_mult, u_hi=float(max_mult),
-        fit_error=True, fit_varw=True,
+    data.multiplicity, hist_pairs, opt = multiplicity_histogram(
+        read_hashes, sp_hashes
     )
     print("Classifying kmers...")
     fit = fit_histogram(hist_pairs, opt)
@@ -323,7 +331,7 @@ def _classify(data: AnchorData, read_hashes, sp_hashes, S: int,
         )
 
     # 8) classification (solver.cpp:830-885). multiplicity >= 1 always here.
-    labels = classify_labels(mult_per_hash, P)
+    labels = classify_labels(data.multiplicity, P)
     homo_bv = (labels == HOM).astype(np.int8)
     data.homo_bv = homo_bv
     count_homo = int(homo_bv.sum())

@@ -27,8 +27,9 @@ Equivalent of ``Approximator::diploid_dp_approximation_solver``
     multiplicative approximation certificate (approximator.cpp:932-1004).
 
 This module is the exact reference tier (validated byte-identical on
-fixtures); `dipgenie_tpu.ops.diploid_jax` provides the TPU kernel with
-identical tie-break semantics, and tests assert agreement.
+fixtures). The native C++ tier (`native/dgcore.cpp`) and the plain-JAX
+device tiers (`ops/diploid_jax.py`, `ops/diploid_fused.py`) share its
+tie-break semantics, and tests assert agreement.
 """
 
 from __future__ import annotations
@@ -244,6 +245,61 @@ def _forward_native(g: ExpandedGraph, R: int, color_homo_bv, n_threads: int = 0,
     return sink_val, sink_shet, transitions
 
 
+DEVICE_TIERS = ("jax", "fused")
+# The device tier ``--dp-backend auto`` runs on an accelerator: the
+# faster plain tier at the MHC_4 shapes on an H100 (see PERF.md).
+AUTO_DEVICE_TIER = "fused"
+
+
+def device_dp(csr, R: int, backend: str, mesh=None):
+    """Plan a plain-JAX device tier over levelized CSR arrays.
+
+    ``jax`` is the chunked ``lax.scan`` tier (ops/diploid_jax.py),
+    ``fused`` the one-scan tier (ops/diploid_fused.py). A graph outside
+    the planner's limits raises ValueError naming the host tiers."""
+    try:
+        if backend == "jax":
+            from ..ops.diploid_jax import DeviceDiploidDP, plan_transitions
+
+            return DeviceDiploidDP(plan_transitions(*csr), R, mesh=mesh)
+        if backend == "fused":
+            from ..ops.diploid_fused import FusedDiploidDP, plan_fused
+
+            if mesh is not None:
+                raise ValueError("the fused tier does not shard over a mesh")
+            return FusedDiploidDP(plan_fused(*csr, R))
+    except ValueError as e:
+        raise ValueError(
+            f"--dp-backend {backend} cannot run this graph ({e}); "
+            "use --dp-backend native (or exact)"
+        ) from e
+    raise ValueError(f"unknown device tier {backend!r}")
+
+
+def _forward_device(g, R: int, color_homo_bv, backend: str, mesh=None,
+                    progress: bool = False):
+    """Device forward DP + traceback; same return contract as
+    _forward_exact. Logs the plan, ship, compile and forward+traceback
+    walls; any failure raises."""
+    from ..utils.timing import log_stage
+
+    t0 = time.time()
+    dp = device_dp(csr_arrays(g, color_homo_bv), R, backend, mesh)
+    log_stage("diploid_dp", f"{backend} tier: plan in {time.time() - t0:.3f}s")
+    t0 = time.time()
+    dp.ship()
+    log_stage("diploid_dp", f"{backend} tier: ship in {time.time() - t0:.3f}s")
+    t0 = time.time()
+    dp.compile()
+    log_stage("diploid_dp",
+              f"{backend} tier: compile in {time.time() - t0:.3f}s")
+    t0 = time.time()
+    out = dp.run(verbose=progress)
+    log_stage("diploid_dp", f"{backend} tier: forward+traceback in "
+              f"{time.time() - t0:.3f}s")
+    return out
+
+
 def diploid_dp_solver(
     g: ExpandedGraph,
     R: int,
@@ -267,78 +323,10 @@ def diploid_dp_solver(
         sink_val, sink_shet, transitions = _forward_native(
             g, R, color_homo_bv, n_threads=n_threads, progress=progress
         )
-    elif backend == "jax":
-        from ..ops.diploid_jax import DeviceDiploidDP, plan_transitions
-
-        plan = plan_transitions(*csr_arrays(g, color_homo_bv))
-        sink_val, sink_shet, transitions = DeviceDiploidDP(
-            plan, R, mesh=mesh
-        ).run()
-    elif backend == "fused":
-        from ..ops.diploid_fused import FusedDiploidDP, plan_fused
-
-        plan = plan_fused(*csr_arrays(g, color_homo_bv), R)
-        sink_val, sink_shet, transitions = FusedDiploidDP(plan).run(
-            verbose=progress
+    elif backend in DEVICE_TIERS:
+        sink_val, sink_shet, transitions = _forward_device(
+            g, R, color_homo_bv, backend, mesh=mesh, progress=progress
         )
-    elif backend == "pallas":
-        import jax as _jax
-
-        from ..ops.diploid_pallas import PairDiploidDP, plan_pairs_cached
-        from ..utils.timing import log_stage
-
-        try:
-            _t0 = time.time()
-            plan = plan_pairs_cached(csr_arrays(g, color_homo_bv), R)
-            log_stage(
-                "diploid_dp", f"pair plan ready in {time.time()-_t0:.1f}s"
-            )
-        except ValueError as e:
-            # R > 31 or packed-key value bound exceeded: the chunked jax
-            # tier has no such limits — fall back loudly.
-            print(
-                f"[W::diploid_dp] pallas tier unavailable ({e}); "
-                "falling back to the chunked jax tier",
-                file=sys.stderr,
-            )
-            from ..ops.diploid_jax import DeviceDiploidDP, plan_transitions
-
-            plan = plan_transitions(*csr_arrays(g, color_homo_bv))
-            sink_val, sink_shet, transitions = DeviceDiploidDP(
-                plan, R, mesh=mesh
-            ).run()
-        else:
-            # Mosaic only compiles on TPU; elsewhere (CPU CI) interpret
-            interp = _jax.default_backend() != "tpu"
-            try:
-                _t0 = time.time()
-                sink_val, sink_shet, transitions = PairDiploidDP(
-                    plan, interpret=interp, mesh=mesh
-                ).run(verbose=progress)
-                log_stage(
-                    "diploid_dp",
-                    "device ship+compile+forward+traceback in "
-                    f"{time.time()-_t0:.1f}s",
-                )
-            except Exception as e:  # noqa: BLE001
-                # the pipeline auto-routes every TPU session here, so a
-                # Mosaic lowering/compile or runtime failure must fall
-                # back loudly to the chunked tier instead of aborting
-                # the whole pipeline (round-4 advisor finding)
-                print(
-                    f"[W::diploid_dp] pallas tier failed at runtime "
-                    f"({type(e).__name__}: {e}); falling back to the "
-                    "chunked jax tier",
-                    file=sys.stderr,
-                )
-                from ..ops.diploid_jax import (
-                    DeviceDiploidDP, plan_transitions,
-                )
-
-                jplan = plan_transitions(*csr_arrays(g, color_homo_bv))
-                sink_val, sink_shet, transitions = DeviceDiploidDP(
-                    jplan, R, mesh=mesh
-                ).run()
     else:
         Hm, Tm = build_color_masks(g, color_homo_bv)
         sink_val, sink_shet, transitions = _forward_exact(

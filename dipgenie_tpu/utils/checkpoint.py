@@ -6,8 +6,8 @@ zero (SURVEY §5 "Checkpoint/resume: none"). Here the expensive front
 half of a run — haplotype + read sketching, the anchor join/filter and
 the k-mer classification — can be checkpointed to disk and resumed:
 ``dipgenie-tpu --checkpoint-dir DIR`` makes every batch entry
-restartable at the anchor stage (the DP plan and bench CSR caches
-cover the later stages; see bench.py).
+restartable at the anchor stage. The later stages (expanded graph,
+levelizing, the DP) run again on resume.
 
 Checkpoints are keyed by a content fingerprint of the input files
 (size + mtime) and the sketch/classify parameters, so a changed input

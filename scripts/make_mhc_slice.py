@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Build tests/data/mhc_slice_csr.npz — a real-fixture slice of the MHC
-levelized expanded-graph CSR for multichip validation.
+"""Cut a slice of a levelized expanded-graph CSR into a standalone DP
+instance with its exact-tier oracle (the tests/data/mhc_slice*.npz
+files were cut this way from the MHC_4 test graph with CHM13 reads).
 
-Takes the first NL levels of the full MHC CSR (bench.py:build_mhc_csr
-cache), appends a width-1 sink level reachable from every level-(NL-1)
-vertex via 0-weight edges, compacts colour ids, and stores both the
-slice CSR and the exact-tier oracle (value, s_het, transitions) so the
-driver's dryrun can validate a sharded DP against real data without
-re-running the exact tier.
+Runs the front end on GFA + READS (-p2 -R18 defaults), takes NL levels
+from level l0, appends a width-1 sink level reachable from every level
+of the last sliced level via 0-weight edges, compacts colour ids, and
+stores the slice CSR with the exact tier's (value, s_het, transitions),
+so tests can check a device tier against it without re-running the
+exact tier.
 
-Usage: python scripts/make_mhc_slice.py [NL] [out.npz]
+Usage: python scripts/make_mhc_slice.py GFA READS [NL] [out.npz] [l0]
 """
 from __future__ import annotations
 
@@ -122,18 +123,22 @@ def csr_to_expanded(arrs, chb):
 
 
 def main() -> int:
-    NL = int(sys.argv[1]) if len(sys.argv) > 1 else 500
-    out = sys.argv[2] if len(sys.argv) > 2 else os.path.join(
+    gfa, reads = sys.argv[1], sys.argv[2]
+    NL = int(sys.argv[3]) if len(sys.argv) > 3 else 500
+    out = sys.argv[4] if len(sys.argv) > 4 else os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "tests", "data", "mhc_slice_csr.npz",
     )
-    l0 = int(sys.argv[3]) if len(sys.argv) > 3 else 0
+    l0 = int(sys.argv[5]) if len(sys.argv) > 5 else 0
     R = 18
 
-    import bench
+    from dipgenie_tpu.solver.diploid import csr_arrays
+    from dipgenie_tpu.solver.pipeline import Pipeline, PipelineConfig
 
-    arrs = bench.build_mhc_csr()
-    sl, chb = slice_csr(arrs, NL, l0)
+    p = Pipeline(gfa, reads, os.devnull, PipelineConfig(verbose=False))
+    p.compute_anchors()
+    g, color_homo_bv, _ = p.diploid_graph()
+    sl, chb = slice_csr(csr_arrays(g, color_homo_bv), NL, l0)
     g = csr_to_expanded(sl, chb)
 
     from dipgenie_tpu.solver.diploid import build_color_masks, _forward_exact

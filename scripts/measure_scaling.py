@@ -3,10 +3,9 @@
 
 Runs the full DeviceDiploidDP forward on a wide synthetic leveled
 workload, unsharded and tp-sharded, and prints one JSON line per
-configuration. On real multi-chip TPU hardware the tp shards ride ICI;
-on the virtual CPU mesh (JAX_PLATFORMS=cpu with
+configuration. On the virtual CPU mesh (JAX_PLATFORMS=cpu with
 --xla_force_host_platform_device_count=N) the numbers validate the
-mechanism and the collective layout, not real speedup — virtual devices
+mechanism and the collective layout, not real speedup: virtual devices
 share the host's cores.
 
 Usage: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -22,15 +21,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 
-# honor JAX_PLATFORMS=cpu even where an accelerator plugin registers
-# itself regardless of the env var (see tests/conftest.py)
-if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-    try:
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
-    except Exception:
-        pass
 
 
 def synthetic_plan(L: int, B: int, P: int, W: int, seed: int = 0):
@@ -71,7 +61,7 @@ def main() -> int:
     for tp in [1, n]:
         mesh = make_mesh(n_dp=1, n_tp=tp) if tp > 1 else None
         dp = DeviceDiploidDP(plan, args.R, mesh=mesh)
-        secs = dp.measure_forward(passes=args.passes)
+        secs = min(dp.measure_passes(passes=args.passes)[0])
         print(json.dumps({
             "metric": "dp_forward_states_per_s",
             "tp": tp,

@@ -16,20 +16,41 @@ from __future__ import annotations
 
 import argparse
 import gzip
+import os
 import sys
 
 import numpy as np
-
-sys.path.insert(0, __file__.rsplit("/", 2)[0])
-
-from dipgenie_tpu.graph.pangenome import PangenomeIndex  # noqa: E402
-from dipgenie_tpu.io.gfa import read_gfa  # noqa: E402
 
 _COMP = bytes.maketrans(b"ACGTacgt", b"TGCAtgca")
 
 
 def revcomp(s: str) -> str:
     return s.translate(_COMP)[::-1]
+
+
+def simulate(fh, walks, coverage: float, length: int, error_rate: float,
+             rng) -> int:
+    """Write reads sampled uniformly from each (name, sequence) walk at
+    ``coverage``, half of them reverse-complemented, with substitution
+    errors at ``error_rate``. Returns the number of reads written."""
+    n_total = 0
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    for name, seq in walks:
+        n_reads = int(len(seq) * coverage / length)
+        starts = rng.integers(0, max(len(seq) - length, 1), n_reads)
+        flips = rng.random(n_reads) < 0.5
+        for i, (st, fl) in enumerate(zip(starts.tolist(), flips.tolist())):
+            r = seq[st : st + length]
+            if error_rate > 0:
+                arr = np.frombuffer(r.encode(), np.uint8).copy()
+                errs = np.nonzero(rng.random(len(arr)) < error_rate)[0]
+                arr[errs] = bases[rng.integers(0, 4, len(errs))]
+                r = arr.tobytes().decode()
+            if fl:
+                r = revcomp(r)
+            fh.write(f"@sim_{name}_{i}\n{r}\n+\n{'I' * len(r)}\n")
+            n_total += 1
+    return n_total
 
 
 def main() -> int:
@@ -44,34 +65,22 @@ def main() -> int:
     ap.add_argument("-o", "--out", required=True)
     args = ap.parse_args()
 
-    g = read_gfa(args.gfa)
-    index = PangenomeIndex.from_gfa(g)
-    name2id = {n: i for i, n in enumerate(index.hap_id2name)}
-    rng = np.random.default_rng(args.seed)
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from dipgenie_tpu.graph.pangenome import PangenomeIndex
+    from dipgenie_tpu.io.gfa import read_gfa
 
+    index = PangenomeIndex.from_gfa(read_gfa(args.gfa))
+    name2id = {n: i for i, n in enumerate(index.hap_id2name)}
+    walks = []
+    for sample in args.sample:
+        if sample not in name2id:
+            sys.exit(f"unknown walk '{sample}'; have {index.hap_id2name}")
+        walks.append((sample, index.haplotype_seq(name2id[sample]).upper()))
+    rng = np.random.default_rng(args.seed)
     opener = gzip.open if args.out.endswith(".gz") else open
-    n_total = 0
     with opener(args.out, "wt") as fh:
-        for sample in args.sample:
-            if sample not in name2id:
-                sys.exit(f"unknown walk '{sample}'; have {index.hap_id2name}")
-            seq = index.haplotype_seq(name2id[sample]).upper()
-            n_reads = int(len(seq) * args.coverage / args.length)
-            starts = rng.integers(0, max(len(seq) - args.length, 1), n_reads)
-            flips = rng.random(n_reads) < 0.5
-            if args.error_rate > 0:
-                bases = np.frombuffer(b"ACGT", np.uint8)
-            for i, (st, fl) in enumerate(zip(starts.tolist(), flips.tolist())):
-                r = seq[st : st + args.length]
-                if args.error_rate > 0:
-                    arr = np.frombuffer(r.encode(), np.uint8).copy()
-                    errs = np.nonzero(rng.random(len(arr)) < args.error_rate)[0]
-                    arr[errs] = bases[rng.integers(0, 4, len(errs))]
-                    r = arr.tobytes().decode()
-                if fl:
-                    r = revcomp(r)
-                fh.write(f"@sim_{sample}_{i}\n{r}\n+\n{'I' * len(r)}\n")
-                n_total += 1
+        n_total = simulate(fh, walks, args.coverage, args.length,
+                           args.error_rate, rng)
     print(f"wrote {n_total} reads to {args.out}", file=sys.stderr)
     return 0
 

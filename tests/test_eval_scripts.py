@@ -37,23 +37,24 @@ def _env_with(bindir):
 
 def test_run_batch_on_toy_fixture(tmp_path):
     """run_batch.sh drives the real CLI over a 1-sample leave-one-out
-    layout built from the toy fixture."""
+    layout built from the committed toy input (scripts/synth_pangenome.py
+    --size toy)."""
     graph = tmp_path / "Graph"
     reads = tmp_path / "Reads"
     outd = tmp_path / "Results"
     graph.mkdir()
     reads.mkdir()
-    with open("/root/reference/test/test.gfa", "rb") as src:
+    data = os.path.join(REPO, "tests", "data")
+    with open(os.path.join(data, "synth_toy.gfa"), "rb") as src:
         with gzip.open(graph / "MHC_wo_S1.gfa.gz", "wb") as dst:
             dst.write(src.read())
-    with open("/root/reference/test/read.fa", "rb") as src:
+    with open(os.path.join(data, "synth_toy.fq"), "rb") as src:
         with gzip.open(reads / "S1.2x.fq.gz", "wb") as dst:
             dst.write(src.read())
     samples = tmp_path / "samples.txt"
     samples.write_text("S1\n")
 
-    env = dict(os.environ, PYTHONPATH=REPO, R="4",
-               DIPGENIE_ARGS="-k 5 -w 3", PYTHON=sys.executable)
+    env = dict(os.environ, PYTHONPATH=REPO, PYTHON=sys.executable)
     r = subprocess.run(
         ["bash", os.path.join(SCRIPTS, "run_batch.sh"), str(samples),
          str(graph), str(reads), str(outd), "2x", "1"],
@@ -64,6 +65,8 @@ def test_run_batch_on_toy_fixture(tmp_path):
     assert full.exists()
     body = full.read_text()
     assert body.count(">") == 2  # diploid pair
+    with open(os.path.join(data, "synth_toy.dip.fa")) as fh:
+        assert body == fh.read()  # -p2 -R18, as the exact tier gives it
     assert (outd / "S1_2x" / "full_1.fa").read_text().count(">") == 1
     assert (outd / "S1_2x" / "full_2.fa").read_text().count(">") == 1
 
